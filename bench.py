@@ -37,17 +37,12 @@ N_QUERIES = int(os.environ.get("WISER_BENCH_QUERIES", 262_144))
 COLUMNS = os.environ.get("WISER_BENCH_COLUMNS", "raw")  # raw | tc
 COARSE = bool(int(os.environ.get("WISER_BENCH_COARSE", "0")))
 IO_WORKERS = int(os.environ.get("WISER_BENCH_IO_WORKERS", "8"))
-# measured (2026-08-17, v5e): fetch-pooling alone wins at 20k docs
-# (15.1k off / 21.7k fetch / 19.8k both QPS — dispatch threads contend
-# with finalizers on the single host core at short group runtimes);
-# "both" wins at 1M where groups are compute-heavy (zipf_t3 1769 vs
-# 1660). The engine default is "both"; the 20k headline uses fetch.
+# the engine default is "both"; the 20k headline uses fetch pooling only
+# (dispatch threads contend with finalizers at short group runtimes)
 IO_MODE = os.environ.get("WISER_BENCH_IO_MODE", "fetch")
 # Max-throughput operating point: one mega-batch per pipeline slot
-# amortizes planning + fetch RTTs and maximizes request coalescing
-# (measured 2026-08-18: BATCH 16k/32k/64k/131k -> 15.1k/27.3k/33.8k/41.8k
-# QPS). Per-batch latency at this point is ~4.7s; the latency story is
-# the closed-loop LATENCY_POINT.json (568 QPS at p50 196 ms/query).
+# amortizes planning + fetch waits and maximizes request coalescing. Its
+# knee on the GPU is not measured yet.
 BATCH = int(os.environ.get("WISER_BENCH_BATCH", 131_072))
 K = 10
 

@@ -114,3 +114,68 @@ class TestFastBuilderParity:
         write_linedoc(path, [["t", "a b", "a b", "0,0;.2,2;.", "0;."]])
         with pytest.raises(ValueError):
             build_packed_fast(path, "WITH_POSITIONS")
+
+
+class TestColumnParsers:
+    """The byte-level column parsers keep the str.split semantics of the
+    linedoc format, including non-canonical spacing."""
+
+    @pytest.mark.parametrize("cols", [
+        ["a b!!c!", "dd!"],         # empty group, several keys
+        [" a!b  c!", "x!"],          # leading / double spaces -> "" keys
+        ["a!", "b c"],               # unterminated last group
+        ["é ü!!"],                   # non-ASCII keys
+    ])
+    def test_hash_bloom_col_matches_split(self, cols):
+        from wiser_tpu.index.fast_builder import _hash_bloom_col
+        from wiser_tpu.native.lib import murmur2_batch_seeded
+
+        groups = "".join(cols).split("!")
+        if groups and groups[-1] == "":
+            groups.pop()
+        keys, entry_of = [], []
+        for i, g in enumerate(groups):
+            if g:
+                keys += g.split(" ")
+                entry_of += [i] * len(g.split(" "))
+        blob = "\x00".join(keys).encode("utf-8")
+        lens = np.array([len(k.encode("utf-8")) for k in keys], np.int64)
+        starts = np.concatenate([[0], np.cumsum(lens[:-1] + 1)])
+        starts = starts.astype(np.int64)
+        want_a = murmur2_batch_seeded(blob, starts, starts + lens, None)
+        want_b = murmur2_batch_seeded(blob, starts, starts + lens, want_a)
+        a, b, e = _hash_bloom_col(cols, len(groups), "bloom")
+        np.testing.assert_array_equal(a, want_a)
+        np.testing.assert_array_equal(b, want_b)
+        np.testing.assert_array_equal(e, entry_of)
+        with pytest.raises(ValueError, match="non-canonical"):
+            _hash_bloom_col(cols, len(groups) + 1, "bloom")
+
+    def test_group_col_counts(self):
+        from wiser_tpu.index.fast_builder import _parse_group_col
+
+        counts, nums = _parse_group_col(["1;2;.", "3;.", "4;5;6;"], 3,
+                                        ";.", "positions")
+        np.testing.assert_array_equal(counts, [2, 1, 3])
+        np.testing.assert_array_equal(nums, [1, 2, 3, 4, 5, 6])
+        with pytest.raises(ValueError, match="non-canonical"):
+            _parse_group_col(["1;.2;."], 3, ";.", "positions")
+
+    def test_bloom_rows_native_matches_numpy(self, monkeypatch):
+        from wiser_tpu.index import fast_builder as fb
+        from wiser_tpu.index.bloom import BloomConfig
+        from wiser_tpu.native import lib as native
+
+        rng = np.random.default_rng(3)
+        n, E, P = 5000, 1000, 700
+        a = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        b = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        chunk = (a, b, rng.integers(0, E, n))
+        order_inv = rng.permutation(E).astype(np.int32)
+        pidx = rng.integers(0, P, E).astype(np.int32)
+        cfg = BloomConfig()
+        got = fb._bloom_rows([chunk], E, order_inv, pidx, P, cfg)
+        monkeypatch.setattr(native, "bloom_set_rows", lambda *args: False)
+        want = fb._bloom_rows([chunk], E, order_inv, pidx, P, cfg)
+        assert want.any()
+        np.testing.assert_array_equal(got, want)

@@ -2,7 +2,7 @@
 
 Random corpora with varied shapes (vocab size, doc length, skew) and
 random query mixes; every query's (doc_id, f64 score) list must be
-bit-identical between the oracle and the TPU engine. This is the fuzzing
+bit-identical between the oracle and the device engine. This is the fuzzing
 layer on top of the targeted equivalence tests.
 """
 

@@ -1,4 +1,4 @@
-"""Device decode kernels (XLA + Pallas interpret) and utils."""
+"""Device decode kernel (XLA) and utils."""
 
 import numpy as np
 import pytest
@@ -7,14 +7,13 @@ from wiser_tpu.codecs import pack_block
 from wiser_tpu.ops.unpack import (
     delta_decode_docs,
     pack_doc_blocks,
-    unpack_blocks_pallas,
     unpack_blocks_xla,
     unpack_doc_blocks,
 )
 
 
 class TestUnpackXla:
-    @pytest.mark.parametrize("width", [1, 5, 13, 21, 32])
+    @pytest.mark.parametrize("width", [1, 3, 5, 13, 17, 21, 32])
     def test_matches_host_codec(self, width):
         import jax.numpy as jnp
 
@@ -24,21 +23,6 @@ class TestUnpackXla:
                             dtype=np.uint64).astype(np.uint32)
         words = np.stack([pack_block(vals[g], width) for g in range(G)])
         out = np.asarray(unpack_blocks_xla(jnp.asarray(words), width))
-        np.testing.assert_array_equal(out, vals)
-
-
-class TestUnpackPallas:
-    @pytest.mark.parametrize("width", [3, 17])
-    def test_interpret_mode_matches(self, width):
-        import jax.numpy as jnp
-
-        rng = np.random.default_rng(width)
-        G = 16
-        vals = rng.integers(0, 2**width, size=(G, 128),
-                            dtype=np.uint64).astype(np.uint32)
-        words = np.stack([pack_block(vals[g], width) for g in range(G)])
-        out = np.asarray(unpack_blocks_pallas(
-            jnp.asarray(words), width, interpret=True))
         np.testing.assert_array_equal(out, vals)
 
 
@@ -81,6 +65,32 @@ class TestUtils:
         rep = pt.report()
         assert "a\t" in rep and "b\t" in rep
         assert pt.counts["a"] == 2
+
+    def test_compile_cache_dir(self, tmp_path, monkeypatch):
+        """$JAX_COMPILATION_CACHE_DIR when set, else one fixed path inside
+        the checkout (the path is part of the cache key)."""
+        import os
+
+        import jax
+
+        from wiser_tpu import utils
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        default = os.path.join(root, ".jax_cache")
+        assert utils.DEFAULT_COMPILE_CACHE_DIR == default
+        old = (jax.config.jax_compilation_cache_dir,
+               jax.config.jax_persistent_cache_min_compile_time_secs)
+        try:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+            assert utils.enable_compile_cache() == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+            assert utils.enable_compile_cache() == default
+            assert jax.config.jax_compilation_cache_dir == default
+        finally:
+            jax.config.update("jax_compilation_cache_dir", old[0])
+            jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                              old[1])
 
     def test_result_table(self):
         from wiser_tpu.utils import ResultTable

@@ -234,6 +234,34 @@ class TestColdChunking:
             eng.search(SearchQuery([packed.terms[0], packed.terms[1]],
                                    n_results=5))
 
+    @pytest.mark.parametrize("budget", [0, 1 << 22])
+    def test_lane_budget_routes_to_host_exactly(self, corpus, monkeypatch,
+                                                budget):
+        """Cold groups over the per-dispatch lane budget (0: every group;
+        2^22: the phrase ones) run on the exact host path, flat and
+        phrase alike; the rest stay on the cold device kernels."""
+        from wiser_tpu.engine import kernels as K
+        from wiser_tpu.engine import staged as S
+
+        packed, oracle = corpus
+        monkeypatch.setattr(S, "COLD_LANE_BUDGET", budget)
+        eng = StagedEngine(packed, hbm_budget_bytes=0)
+        eng.COLD_COMPUTE = "device"
+        terms = [t for t in packed.terms if packed.lookup(t) >= 0]
+        rng = np.random.default_rng(9)
+        queries = [SearchQuery(list(rng.choice(terms, size=k, replace=False)),
+                               n_results=10, is_phrase=phrase)
+                   for k in (2, 3) for phrase in (False, True)
+                   for _ in range(8)]
+        K.make_search_kernel.cache_clear()
+        K.make_phrase_kernel.cache_clear()
+        got = eng.search_batch(queries)
+        for q, r in zip(queries, got):
+            assert_same(oracle.search(q), r, f"terms={q.terms}")
+        ran = (K.make_search_kernel.cache_info().currsize
+               + K.make_phrase_kernel.cache_info().currsize)
+        assert (ran == 0) == (budget == 0)
+
 
 from wiser_tpu.engine.device import L_BUCKETS as _LB  # noqa: E402
 

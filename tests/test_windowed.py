@@ -78,3 +78,52 @@ class TestOverflowFallback:
         assert_same(oracle.search(q), engine.search(q), "skewed AND")
         q2 = SearchQuery(["b", "a"], n_results=10)
         assert_same(oracle.search(q2), engine.search(q2), "skewed AND rev")
+
+
+class TestWindowedExactPayloads:
+    """The windowed route's payload pick is exact for payloads that a
+    reduced-precision (TF32, 10-bit mantissa) contraction would round: f32
+    scores with low mantissa bits set, and tc codes above 2^11."""
+
+    @pytest.mark.parametrize("columns", ["raw", "tc"])
+    def test_bit_exact_vs_host(self, dense_corpus, columns):
+        import jax.numpy as jnp
+
+        from wiser_tpu.engine import kernels as K
+        from wiser_tpu.engine.device import _PlannedQuery, host_exact_search
+
+        packed, _ = dense_corpus
+        engine = TpuEngine(packed, columns=columns, single_term_depth=0,
+                           dense_budget_bytes=0)
+        if columns == "tc":
+            assert (np.asarray(engine.d_postings_tc) >= 2**11).any()
+        else:
+            sc = np.asarray(engine.d_postings_score)
+            assert ((sc[sc > 0].view(np.uint32) & 0x1FFF) != 0).any()
+        queries = [SearchQuery(t, n_results=10) for t in (
+            ["w0", "w1"], ["w2", "w3", "w4"], ["w5", "w6"], ["w7", "w8"])]
+        keys = []
+        for q in queries:
+            pq = _PlannedQuery(0, [packed.lookup(t) for t in q.terms], q)
+            pq.plan_slots(packed.df)
+            keys.append(engine._flat_key(pq))
+        assert all(k[2] for k in keys), keys  # every query windowed
+        engine.stats_take()
+        results = engine.search_batch(queries)
+        assert engine.stats_take().get("host_fallback_q", 0) < len(queries)
+        for q, r in zip(queries, results):
+            d, s = host_exact_search(packed, engine.cache64,
+                                     [packed.lookup(t) for t in q.terms], 10)
+            assert [(e.doc_id, e.doc_score) for e in r.entries] == \
+                list(zip(d.tolist(), s.tolist())), q.terms
+        # no contraction in the lowered kernel may run below f32 precision
+        T, L, L2, _ = keys[0]
+        kern = K.make_windowed_search_kernel(T, L, L2 // 128, 64, mode=columns)
+        z = jnp.zeros((8, T), jnp.int32)
+        f = jnp.zeros((8, T), jnp.float32)
+        cols = ((engine.d_postings_tc, engine.d_avg32) if columns == "tc"
+                else (engine.d_postings_score, engine.d_postings_tf))
+        text = kern.lower(engine.d_postings_doc, *cols, z, z, f).as_text()
+        for line in text.splitlines():
+            if "dot_general" in line:
+                assert "HIGHEST" in line, line

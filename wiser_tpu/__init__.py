@@ -1,9 +1,9 @@
-"""wiser_tpu — a TPU-native full-text search engine in JAX.
+"""wiser_tpu — an accelerator-resident full-text search engine in JAX.
 
-Clean-slate rebuild of the capabilities of WiSER/Vacuum (FAST'20,
-reference C++ at /root/reference/src/qq_mem/src/) redesigned for TPU:
-columnar HBM-resident posting arrays, SPMD batched query execution under
-jax.jit/shard_map, Pallas kernels for decode-heavy ops. See ARCHITECTURE.md.
+Clean-slate rebuild of the capabilities of WiSER/Vacuum (FAST'20) for an
+accelerator: columnar device-resident posting arrays and SPMD batched
+query execution under jax.jit/shard_map, compiled by XLA. See
+ARCHITECTURE.md.
 """
 
 __version__ = "0.1.0"

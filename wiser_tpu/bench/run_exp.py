@@ -2,11 +2,11 @@
 matrix: engine x memory cap x query type x readahead x bloom factor,
 iostat/blktrace watchers, result-table parsing).
 
-The TPU analog sweeps the dimensions that matter here — corpus scale,
+The device analog sweeps the dimensions that matter here — corpus scale,
 batch size, workload mix, bloom factor, engine kind — runs each treatment
 through the local engine (or a gRPC target), and writes one JSON row per
 treatment (the parse_client_output + ResultTable analog). OS-level I/O
-control (cgroups, page-cache drops) has no TPU equivalent; the analogous
+control (cgroups, page-cache drops) has no device equivalent; the analogous
 knob, device-memory budget, is recorded per treatment via
 jax.local_devices()[0].memory_stats() when available.
 
@@ -255,7 +255,7 @@ def run_treatment(t: Treatment) -> ExpResult:
         # (postings + positions + blooms + dense tier at frac=1.0) —
         # the reference grid's cgroup cap is a fraction of total index
         # bytes, and a posting-bytes-only base left the dense tier
-        # outside the budget (the round-3 9.6-QPS-at-50% artifact)
+        # outside the budget (so a "50%" point ran the full dense tier)
         total_bytes = full_device_bytes(packed, t.columns)
         budget = int(total_bytes * (t.hbm_budget_frac or 1.0))
         engine = StagedEngine(packed, budget, doc_bodies=doc_bodies,

@@ -5,7 +5,7 @@ packed_value.h) re-expressed as vectorized NumPy for the host indexing path.
 Device-side decode of bit-packed blocks lives in wiser_tpu/ops/unpack.py.
 
 The bit layout choices here are *ours* (array-structured, word-aligned for
-TPU gathers); only the externally observable semantics — the lossy length
+device gathers); only the externally observable semantics — the lossy length
 code values and delta+pack losslessness — match the reference.
 """
 
@@ -108,7 +108,7 @@ def varint_decode(buf: bytes, offset: int) -> tuple[int, int]:
 #
 # The reference packs 128-int blocks at the narrowest bit width via
 # LittleIntPacker (packed_value.h:87-274). We keep the 128-value block and
-# the per-block width, but lay words out so a TPU kernel can unpack with
+# the per-block width, but lay words out so a device kernel can unpack with
 # aligned vector loads: each block is `width` consecutive uint32 lanes of a
 # (n_blocks, 32*?) ... simplest robust layout: ceil(128*width/32) uint32
 # words per block, bits written little-endian within the block.

@@ -2,12 +2,12 @@
 
 The reference's entire distributed story is a gRPC client/server pair with
 a single server owning the whole index (SURVEY.md §2, grpc_server_impl.h);
-there is no index sharding. This module adds the TPU-native scaling axis
+there is no index sharding. This module adds the device-mesh scaling axis
 (BASELINE.json config 5): postings are partitioned by contiguous document
 ranges across mesh devices, every device runs the same batched search step
 on its local shard under shard_map, and per-shard top-k results are merged
-with an all-gather + re-top-k — the collective rides ICI instead of a
-network hop.
+with an all-gather + re-top-k — the collective rides the device
+interconnect (NVLink on a multi-GPU host) instead of a network hop.
 
 Correctness notes:
 - df/idf/avg_len/doc length codes are global statistics, replicated.
@@ -40,7 +40,6 @@ from wiser_tpu.engine.device import (
 from wiser_tpu.index.format import BLOCK, PackedIndex
 from wiser_tpu.scoring import Bm25Similarity
 from wiser_tpu.types import SearchQuery, SearchResult
-from wiser_tpu.utils import serial_jit
 
 
 @dataclass
@@ -220,7 +219,7 @@ def make_sharded_kernel(T: int, L: int, M: int, n_bs_iters: int, mesh: Mesh,
         out_specs=(P(), P(), P(), P()),
         check_vma=False,
     )
-    return serial_jit(step)
+    return jax.jit(step)
 
 
 @lru_cache(maxsize=64)
@@ -265,7 +264,7 @@ def make_sharded_phrase_kernel(T: int, L: int, PP: int, M: int,
         out_specs=P(),
         check_vma=False,
     )
-    return serial_jit(step)
+    return jax.jit(step)
 
 
 def _merge_gathered(top_docs, top_score, tfs, ltrunc, *, T, M,
@@ -339,7 +338,7 @@ def make_sharded_dense_kernel(T: int, Npd: int, M: int, mesh: Mesh):
         local, mesh=mesh,
         in_specs=(P("d"), P("d"), P(), P()),
         out_specs=P(), check_vma=False)
-    return serial_jit(step)
+    return jax.jit(step)
 
 
 @lru_cache(maxsize=32)
@@ -401,7 +400,7 @@ def make_sharded_pruned_dense_kernel(T: int, NB: int, C: int, M: int,
         local, mesh=mesh,
         in_specs=(P("d"), P("d"), P("d"), P(), P(), P()),
         out_specs=P(), check_vma=False)
-    return serial_jit(step)
+    return jax.jit(step)
 
 
 @lru_cache(maxsize=32)
@@ -480,7 +479,7 @@ def make_sharded_semidense_kernel(T: int, L: int, M: int, Npd: int,
         in_specs=(P("d"), P("d"), P("d"), P("d"), P("d"), P("d"), P("d"),
                   P(), P(), P()),
         out_specs=P(), check_vma=False)
-    return serial_jit(step)
+    return jax.jit(step)
 
 
 @lru_cache(maxsize=32)
@@ -552,7 +551,7 @@ def make_sharded_compact_phrase_kernel(T: int, L: int, KV: int, PP: int,
         local, mesh=mesh,
         in_specs=(P("d"),) * n_sharded + (P(),) * 8,
         out_specs=P(), check_vma=False)
-    return serial_jit(step)
+    return jax.jit(step)
 
 
 def _merge_gathered_flags(top_docs, top_score, tfs, lflags, *, T, M,
@@ -611,7 +610,7 @@ def make_sharded_kernel_tc(T: int, L: int, M: int, n_bs_iters: int,
         local, mesh=mesh,
         in_specs=(P("d"), P("d"), P("d"), P("d"), P(), P()),
         out_specs=(P(), P(), P(), P()), check_vma=False)
-    return serial_jit(step)
+    return jax.jit(step)
 
 
 @lru_cache(maxsize=64)
@@ -646,7 +645,7 @@ def make_sharded_phrase_kernel_tc(T: int, L: int, PP: int, M: int,
         in_specs=(P("d"), P("d"), P("d"), P("d"), P("d"), P("d"),
                   P(), P(), P()),
         out_specs=P(), check_vma=False)
-    return serial_jit(step)
+    return jax.jit(step)
 
 
 @lru_cache(maxsize=32)
@@ -697,7 +696,7 @@ def make_sharded_dense_kernel_tc(T: int, Npd: int, M: int, mesh: Mesh,
         local, mesh=mesh,
         in_specs=(P("d"), P("d"), P(), P()),
         out_specs=P(), check_vma=False)
-    return serial_jit(step)
+    return jax.jit(step)
 
 
 @lru_cache(maxsize=32)
@@ -766,7 +765,7 @@ def make_sharded_pruned_dense_kernel_tc(T: int, NB: int, C: int, M: int,
         local, mesh=mesh,
         in_specs=(P("d"), P("d"), P("d"), P(), P(), P()),
         out_specs=P(), check_vma=False)
-    return serial_jit(step)
+    return jax.jit(step)
 
 
 @lru_cache(maxsize=32)
@@ -855,7 +854,7 @@ def make_sharded_semidense_kernel_tc(T: int, L: int, M: int, Npd: int,
         local, mesh=mesh,
         in_specs=(P("d"), P("d"), P("d"), P("d"), P("d"), P(), P(), P()),
         out_specs=P(), check_vma=False)
-    return serial_jit(step)
+    return jax.jit(step)
 
 
 def host_exact_search_sharded(sh: ShardedIndex, cache64: np.ndarray,
@@ -1069,7 +1068,7 @@ class ShardedEngine:
                           budget_bytes: int) -> None:
         """Dense (H, D*Npd) head-term rows split on the shard doc grid ->
         (D, H, Npd) device arrays sharded on axis 0 (the single-device
-        tier of device.py _build_dense_rows, partitioned the TPU way)."""
+        tier of device.py _build_dense_rows, partitioned by doc range)."""
         sh = self.sharded
         n, D = sh.n_docs, sh.n_shards
         dense_min = max(self.DENSE_MIN_DF_FLOOR,

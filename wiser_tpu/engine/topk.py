@@ -121,7 +121,6 @@ def rescore_topk_batch(
     """
     B, T, M = top_tfs.shape
     # guard: doc ids outside [0, n_docs) are invalid lanes by construction
-    # (also shields against transient device faults on tunneled backends)
     valid = (top_docs >= 0) & (top_docs < doc_len_code.shape[0])  # (B, M)
     docs = np.where(valid, top_docs, 0).astype(np.int64)
     cache_val = cache64[doc_len_code[docs] & 0xFF]  # (B, M)

@@ -5,8 +5,8 @@ x_i = (a + i*b) mod bits with a = murmur2(key, 0x9747b28c),
 b = murmur2(key, a); bloom.c:48-75,142-176) and
 libbloom/murmur2/MurmurHash2.c (MurmurHash2 by Austin Appleby).
 
-TPU-first redesign: filters are stored *columnar* — one fixed-size row of
-uint32 words per (term, doc) posting, so a batch of bloom probes is a
+Accelerator-first redesign: filters are stored *columnar* — one
+fixed-size row of uint32 words per (term, doc) posting, so a batch of bloom probes is a
 gather of filter rows + a bitwise AND against per-query probe masks. The
 probe *bit positions* depend only on the probed key string and the filter
 geometry, so the host computes them once per query (11 small ints for the

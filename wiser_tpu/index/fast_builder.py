@@ -149,38 +149,49 @@ def _parse_group_col(cols: List[str], n_entries: int, seps: str,
 
     Returns (counts int64[n_entries], flat numbers int64[total])."""
     joined = "".join(cols)
-    groups = joined.split(".")
-    if groups and groups[-1] == "":
-        groups.pop()
-    if len(groups) != n_entries:
+    buf = np.frombuffer(joined.encode("utf-8"), dtype=np.uint8)
+    dots = np.flatnonzero(buf == ord("."))
+    if len(buf) and buf[-1] != ord("."):  # unterminated last group
+        dots = np.append(dots, len(buf))
+    if len(dots) != n_entries:
         raise ValueError(
-            f"non-canonical {what} column: {len(groups)} groups for "
+            f"non-canonical {what} column: {len(dots)} groups for "
             f"{n_entries} token entries (empty groups / missing dots?)")
-    counts = np.fromiter((g.count(";") for g in groups),
-                         dtype=np.int64, count=n_entries)
+    semis = np.flatnonzero(buf == ord(";"))
+    counts = np.diff(np.searchsorted(semis, dots), prepend=0)
     nums = _fromstring(joined, ";,.")
-    return counts, nums
+    return counts.astype(np.int64), nums
 
 
-def _parse_bloom_col(cols: List[str], n_entries: int, what: str):
-    """Parse a '!'-separated phrase-neighbor column: returns
-    (keys list[str], entry_of int64[n_keys]) for non-empty groups."""
-    joined = "".join(cols)
-    groups = joined.split("!")
-    if groups and groups[-1] == "":
-        groups.pop()
-    if len(groups) != n_entries:
+def _hash_bloom_col(cols: List[str], n_entries: int, what: str):
+    """Parse a '!'-separated phrase-neighbor column and double-hash its
+    keys (libbloom's a + i*b probe sequence needs exactly these two murmur
+    values per key) in one pass over the column's bytes. Keys are the
+    single-space-split pieces of every non-empty group. Returns (a u32,
+    b u32, entry_of int64) per key."""
+    from wiser_tpu.native.lib import murmur2_batch_seeded
+
+    blob = "".join(cols).encode("utf-8")
+    if blob and not blob.endswith(b"!"):  # unterminated last group
+        blob += b"!"
+    buf = np.frombuffer(blob, dtype=np.uint8)
+    bangs = np.flatnonzero(buf == ord("!"))
+    if len(bangs) != n_entries:
         raise ValueError(
-            f"non-canonical {what} column: {len(groups)} groups for "
+            f"non-canonical {what} column: {len(bangs)} groups for "
             f"{n_entries} token entries")
-    keys: List[str] = []
-    entry_of: List[int] = []
-    for i, g in enumerate(groups):
-        if g:
-            ks = g.split(" ")
-            keys.extend(ks)
-            entry_of.extend([i] * len(ks))
-    return keys, np.asarray(entry_of, dtype=np.int64)
+    # pieces end at every separator; a piece belongs to the group whose
+    # '!' closes it, and empty groups ("!!") contribute no key
+    sep = np.flatnonzero((buf == ord(" ")) | (buf == ord("!")))
+    starts = np.concatenate([[0], sep[:-1] + 1]).astype(np.int64)
+    group = np.searchsorted(bangs, sep)
+    glen = np.diff(bangs, prepend=-1) - 1
+    keep = glen[group] > 0
+    starts, ends = starts[keep], sep[keep].astype(np.int64)
+    entry_of = group[keep]
+    a = murmur2_batch_seeded(blob, starts, ends, None)  # seed=MURMUR
+    b = murmur2_batch_seeded(blob, starts, ends, a)
+    return a, b, entry_of.astype(np.int64)
 
 
 def parse_linedoc_chunks(
@@ -231,7 +242,7 @@ def _accumulate_chunk(acc: _ChunkAccum, chunk: tuple,
             ts.pop()
         flat_tokens.extend(ts)
         n_tok[i] = len(ts)
-    if any(t == "" for t in flat_tokens):
+    if "" in flat_tokens:
         raise ValueError("non-canonical tokens column (empty tokens)")
     E = len(flat_tokens)
 
@@ -280,8 +291,7 @@ def _accumulate_chunk(acc: _ChunkAccum, chunk: tuple,
         for colz, name, store in (
                 (ends_cols, "ends", acc.bloom_ends_keys),
                 (begins_cols, "begins", acc.bloom_begins_keys)):
-            keys, entry_of = _parse_bloom_col(colz, E, "bloom")
-            a, b = _hash_bloom_keys(keys)
+            a, b, entry_of = _hash_bloom_col(colz, E, "bloom")
             # int32 entry ids: < 2^31 entries by the device-addressing
             # guard; the (a, b, entry_of) chunks are the builder's
             # largest resident (measured ~20 GB of the 31 GB 1M peak
@@ -295,25 +305,6 @@ def _accumulate_chunk(acc: _ChunkAccum, chunk: tuple,
                 store.append((a, b, eids))
     acc.n_docs += n_docs
     acc.n_entries += E
-
-
-def _hash_bloom_keys(keys: List[str]) -> Tuple[np.ndarray, np.ndarray]:
-    """Double-hash pass over neighbor keys (libbloom's a + i*b probe
-    sequence needs exactly these two murmur values per key)."""
-    from wiser_tpu.native.lib import murmur2_batch_seeded
-
-    if not keys:
-        z = np.zeros(0, dtype=np.uint32)
-        return z, z
-    blob = "\x00".join(keys).encode("utf-8")
-    lens = np.fromiter((len(k.encode("utf-8")) for k in keys),
-                       dtype=np.int64, count=len(keys))
-    starts = np.zeros(len(keys), dtype=np.int64)
-    np.cumsum(lens[:-1] + 1, out=starts[1:])
-    ends = starts + lens
-    a = murmur2_batch_seeded(blob, starts, ends, None)  # seed=MURMUR
-    b = murmur2_batch_seeded(blob, starts, ends, a)
-    return a, b
 
 
 def _bloom_rows(key_chunks, n_entries: int, order_inv: np.ndarray,
@@ -330,14 +321,18 @@ def _bloom_rows(key_chunks, n_entries: int, order_inv: np.ndarray,
     H = cfg.n_hashes
     bits = np.uint64(cfg.bits)
     i_h = np.arange(H, dtype=np.uint64)[None, :]
+    from wiser_tpu.native import lib as native
+
     for a, b, entry_of in key_chunks:
         if not len(a):
+            continue
+        prow = pidx[order_inv[entry_of]]
+        if native.bloom_set_rows(a, b, prow, H, cfg.bits, rows):
             continue
         x = ((a.astype(np.uint64)[:, None] + i_h * b.astype(np.uint64)[:, None])
              & np.uint64(0xFFFFFFFF)) % bits
         word = (x // 32).astype(np.int64)
         mask = (np.uint32(1) << (x % 32).astype(np.uint32)).astype(np.uint32)
-        prow = pidx[order_inv[entry_of]]
         flat = prow[:, None] * cfg.n_words + word
         np.bitwise_or.at(rows.reshape(-1), flat.ravel(), mask.ravel())
     return rows

@@ -44,8 +44,8 @@ FORMAT_VERSION = 2
 # (sentinel doc INT32_MAX, tf 0) so each term starts on a block boundary —
 # the direct analog of the reference's 128-value packs
 # (flash_containers.h:10, packed_value.h), and what lets the device
-# address posting blocks as rows of a (P/128, 128) matrix: TPU row
-# gathers are ~40x faster than element gathers.
+# address posting blocks as rows of a (P/128, 128) matrix: one 128-wide
+# row gather instead of 128 element gathers.
 BLOCK = 128
 SENTINEL_DOC = np.int32(2**31 - 1)
 

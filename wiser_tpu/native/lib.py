@@ -79,6 +79,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.wiser_lz4_compress.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
         lib.wiser_lz4_decompress.restype = ctypes.c_int64
         lib.wiser_lz4_decompress.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
+        lib.wiser_bloom_set_rows.restype = None
+        lib.wiser_bloom_set_rows.argtypes = [u32p, u32p, i64p, ctypes.c_int64,
+                                             ctypes.c_int, ctypes.c_uint32,
+                                             ctypes.c_int, u32p]
         lib.wiser_linedoc_chunk.restype = ctypes.c_int64
         lib.wiser_linedoc_chunk.argtypes = [u8p, i64p, ctypes.c_int64, i64p,
                                             i64p, ctypes.c_int64, ctypes.c_int,
@@ -210,6 +214,28 @@ def pack_blocks(vals: np.ndarray, widths: np.ndarray) -> np.ndarray:
         return out
     lib.wiser_pack_blocks(_u32(vals), _u8(widths), nb, _u32(out))
     return out
+
+
+def bloom_set_rows(a: np.ndarray, b: np.ndarray, row: np.ndarray,
+                   n_hashes: int, bits: int, rows: np.ndarray) -> bool:
+    """OR each key's probe bits into rows[row[i]] (uint32 (P, n_words),
+    C-contiguous, modified in place). Returns False without the library."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    if rows.dtype != np.uint32 or not rows.flags.c_contiguous:
+        raise ValueError("rows must be a C-contiguous uint32 array")
+    a = np.ascontiguousarray(a, dtype=np.uint32)
+    b = np.ascontiguousarray(b, dtype=np.uint32)
+    row = np.ascontiguousarray(row, dtype=np.int64)
+    if not (len(a) == len(b) == len(row)):
+        raise ValueError("a, b and row must have one entry per key")
+    if len(row) and (row.min() < 0 or row.max() >= rows.shape[0]):
+        raise ValueError("row index out of range")
+    lib.wiser_bloom_set_rows(_u32(a), _u32(b), _i64(row), len(row),
+                             int(n_hashes), int(bits), rows.shape[1],
+                             _u32(rows))
+    return True
 
 
 def unpack_blocks(words: np.ndarray, widths: np.ndarray) -> np.ndarray:

@@ -4,7 +4,7 @@
 // SIMD bit packing (src/qq_mem/src/LittleIntPacker/), libbloom's murmur2
 // (libbloom/murmur2/MurmurHash2.c), LZ4 for the doc store (doc_store.h:85),
 // and varint everywhere (compression.h). This file provides the same
-// capabilities for the TPU build's host indexing/doc-store path as a small
+// capabilities for this build's host indexing/doc-store path as a small
 // C library consumed via ctypes (no pybind11 in this image).
 //
 // The LZ4 implementation is a clean-room implementation of the public LZ4
@@ -295,6 +295,21 @@ int64_t wiser_lz4_decompress(const uint8_t* src, int64_t n, uint8_t* dst,
     op += ml;
   }
   return (op == oend) ? dst_len : -1;
+}
+
+// Columnar bloom filter rows (index/bloom.py layout): OR each key's
+// n_hashes probe bits — libbloom's (a + i*b) mod 2^32 mod bits — into the
+// n_words-word row of its posting.
+void wiser_bloom_set_rows(const uint32_t* a, const uint32_t* b,
+                          const int64_t* row, int64_t n, int n_hashes,
+                          uint32_t bits, int n_words, uint32_t* rows) {
+  for (int64_t i = 0; i < n; i++) {
+    uint32_t* r = rows + row[i] * n_words;
+    for (int h = 0; h < n_hashes; h++) {
+      uint32_t x = (a[i] + (uint32_t)h * b[i]) % bits;
+      r[x >> 5] |= 1u << (x & 31);
+    }
+  }
 }
 
 }  // extern "C"

@@ -12,27 +12,16 @@ flash_containers.h:236).
 Because the width is static per kernel, every value's (word index, bit
 offset) pair is a compile-time constant: the unpack is expressed as two
 constant-index gathers + shifts + mask — no data-dependent indexing, so
-it vectorizes on the VPU. Provided in two forms:
-
-- unpack_blocks_xla: plain jitted jnp (usable everywhere today)
-- unpack_blocks_pallas: a Pallas kernel (VMEM-resident, grid over block
-  tiles); `interpret=True` runs it on CPU for tests. Validated bit-exact
-  on real TPU hardware (v5e, 2026-08-16; Mosaic requires the dynamic
-  gather as a shape-matched take_along_axis over 128-lane rows).
+XLA fuses it into one elementwise kernel (unpack_blocks_xla).
 """
 
 from __future__ import annotations
 
-from functools import lru_cache, partial
+from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-from wiser_tpu.utils import serial_jit
-
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 BLOCK = 128
 
@@ -74,70 +63,6 @@ def _xla_unpack(width: int):
 def unpack_blocks_xla(words: jnp.ndarray, width: int) -> jnp.ndarray:
     """(G, 4*width) uint32 -> (G, 128) uint32."""
     return _xla_unpack(width)(words)
-
-
-def _pallas_kernel(width: int, tile: int):
-    mask = np.uint32(0xFFFFFFFF) if width == 32 else np.uint32((1 << width) - 1)
-
-    def kernel(words_ref, lo_idx_ref, hi_idx_ref, off_ref, hishift_ref,
-               needhi_ref, out_ref):
-        # Mosaic's dynamic gather wants input/indices/output shape-matched,
-        # so blocks ride as 128-lane rows (4*width <= 128 always) and the
-        # per-lane source column is a take_along_axis over the lane dim.
-        words = words_ref[:]
-        lo_idx = jnp.broadcast_to(lo_idx_ref[0][None, :], (tile, BLOCK))
-        hi_idx = jnp.broadcast_to(hi_idx_ref[0][None, :], (tile, BLOCK))
-        lo_w = jnp.take_along_axis(words, lo_idx, axis=1)
-        hi_w = jnp.take_along_axis(words, hi_idx, axis=1)
-        lo = lo_w >> off_ref[0][None, :]
-        hi = jnp.where(needhi_ref[0][None, :] != 0,
-                       hi_w << hishift_ref[0][None, :], jnp.uint32(0))
-        out_ref[:] = (lo | hi) & mask
-
-    return kernel
-
-
-@lru_cache(maxsize=40)
-def _pallas_unpack(width: int, tile: int, interpret: bool):
-    kern = _pallas_kernel(width, tile)
-    word_idx, bit_off, needs_hi = _static_layout(width)
-    hi_idx = np.minimum(word_idx + 1, 4 * width - 1)
-    hi_shift = ((32 - bit_off) % 32).astype(np.uint32)
-    # layout vectors ride as (1, 128) VMEM inputs (Pallas kernels cannot
-    # capture traced constants)
-    consts = tuple(
-        a.reshape(1, BLOCK)
-        for a in (word_idx.astype(np.int32), hi_idx.astype(np.int32),
-                  bit_off.astype(np.uint32), hi_shift,
-                  needs_hi.astype(np.uint32))
-    )
-
-    def f(words):  # (G, 4*width) uint32, G % tile == 0
-        G = words.shape[0]
-        if words.shape[1] < BLOCK:  # pad block rows to full 128 lanes
-            words = jnp.pad(words, ((0, 0), (0, BLOCK - words.shape[1])))
-        const_specs = [
-            pl.BlockSpec((1, BLOCK), lambda g: (0, 0), memory_space=pltpu.VMEM)
-            for _ in consts
-        ]
-        return pl.pallas_call(
-            kern,
-            grid=(G // tile,),
-            in_specs=[pl.BlockSpec((tile, BLOCK), lambda g: (g, 0),
-                                   memory_space=pltpu.VMEM)] + const_specs,
-            out_specs=pl.BlockSpec((tile, BLOCK), lambda g: (g, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((G, BLOCK), jnp.uint32),
-            interpret=interpret,
-        )(words, *consts)
-
-    return serial_jit(f)
-
-
-def unpack_blocks_pallas(words: jnp.ndarray, width: int, tile: int = 8,
-                         interpret: bool = False) -> jnp.ndarray:
-    """Pallas variant; words (G, 4*width) with G a multiple of `tile`."""
-    return _pallas_unpack(width, tile, interpret)(words)
 
 
 def delta_decode_docs(deltas_u32: jnp.ndarray, block_first: jnp.ndarray) -> jnp.ndarray:
@@ -204,21 +129,13 @@ def pack_doc_blocks(postings_doc: np.ndarray) -> dict:
             "widths": widths}
 
 
-def unpack_doc_blocks(packed: dict, use_pallas: bool = False,
-                      interpret: bool = False) -> np.ndarray:
+def unpack_doc_blocks(packed: dict) -> np.ndarray:
     """Inverse of pack_doc_blocks -> int32[G*128] doc column (sentinel
     lanes hold the carried previous id, NOT the sentinel)."""
     G = len(packed["block_first"])
     out = np.zeros((G, BLOCK), dtype=np.int32)
     for w, (sel, words) in packed["groups"].items():
-        jw = jnp.asarray(words)
-        if use_pallas:
-            pad = (-len(sel)) % 8
-            if pad:
-                jw = jnp.concatenate([jw, jnp.zeros((pad, jw.shape[1]), jw.dtype)])
-            vals = unpack_blocks_pallas(jw, w, interpret=interpret)[: len(sel)]
-        else:
-            vals = unpack_blocks_xla(jw, w)
+        vals = unpack_blocks_xla(jnp.asarray(words), w)
         firsts = jnp.asarray(packed["block_first"][sel])
         out[sel] = np.asarray(delta_decode_docs(vals, firsts))
     return out.reshape(-1)

@@ -2,7 +2,7 @@
 
 Plays the role the in-memory QQ-Mem engine plays for Vacuum in the reference
 (qq_mem_engine.h:46-447): a simple, obviously-correct engine used as ground
-truth in equivalence tests against the packed TPU engine (SURVEY.md §4's
+truth in equivalence tests against the packed device engine (SURVEY.md §4's
 load-bearing test idea). All scoring is float64 with the reference's
 operation order; top-k is canonicalized as (score desc, doc_id asc), which
 reproduces the reference min-heap's kept set (query_processing.h:897-945:

@@ -158,8 +158,8 @@ def run_multiprocess(target, queries, n_procs, n_threads, streaming,
     """Closed-loop load from n_procs forked processes x n_threads streams.
 
     The reference client runs 128 C++ threads (grpc_client_impl.h:393-399);
-    one CPython process tops out near ~65 QPS of proto+gRPC work on this
-    box (GIL), so offered concurrency scales with PROCESSES here. Each
+    one CPython process is bounded by the GIL on proto+gRPC work, so
+    offered concurrency scales with PROCESSES here. Each
     child returns its gpr-style histogram; buckets merge exactly."""
     import multiprocessing as mp
 

@@ -2,7 +2,7 @@
 
 The reference's AsyncServer achieves throughput with N completion queues x
 5000 preallocated call state machines (grpc_server_impl.h:209-458). The
-TPU-native equivalent of that design is a *batching executor*: request
+accelerator-native equivalent of that design is a *batching executor*: request
 handler threads enqueue queries into a shared queue; a dispatcher thread
 drains up to `max_batch` queries (or waits `max_wait_ms`), executes them
 as ONE batched device program via TpuEngine.search_batch, and fulfills the
@@ -285,9 +285,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
     ap.add_argument("--io-mode", default="both",
                     choices=["off", "dispatch", "fetch", "both"],
-                    help="engine RTT-overlap thread pools; 'fetch' wins "
-                         "on small corpora where dispatch threads "
-                         "contend with finalizers (see bench.py note)")
+                    help="engine dispatch/fetch overlap thread pools")
     ap.add_argument("--warmup", action="store_true",
                     help="pre-compile generic shape buckets before serving")
     ap.add_argument("--warmup-log",

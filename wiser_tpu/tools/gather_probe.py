@@ -1,16 +1,15 @@
-"""Micro-probe: semidense doc-indexed gather alternatives on the real
-backend.
+"""Micro-probe: semidense doc-indexed gather alternatives on the device.
 
 The semidense kernel's per-lane membership test is ONE element gather
 into a (H, N_pad) dense score row per dense other
-(kernels.make_semidense_kernel). Element gathers run ~0.1 G elem/s on
-this backend while 128-wide row gathers run >4 G elem/s — this probe
+(kernels.make_semidense_kernel). Which form of that lookup is fastest
+depends on the device's element- vs row-gather rates — this probe
 measures the candidates for reformulating the lookup before committing a
 kernel rewrite:
 
   a. element          — today's gather (baseline)
   b. rowgather_onehot — gather the 128-wide doc block per lane, select
-                        within-block via a one-hot MXU contraction
+                        within-block via a one-hot contraction
   c. rowgather_local  — gather the doc block per lane, select via
                         take_along_axis into the (B, L, 128) tensor
   d. allblock_scan    — no gather: scan ALL doc blocks of the row and

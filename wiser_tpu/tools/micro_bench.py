@@ -151,7 +151,8 @@ def bench_echo(table: ResultTable, target: str) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--device", action="store_true", help="include TPU benches")
+    ap.add_argument("--device", action="store_true",
+                    help="include device benches")
     ap.add_argument("--echo-target", help="host:port of a running server")
     args = ap.parse_args(argv)
 

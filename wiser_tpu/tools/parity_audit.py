@@ -14,7 +14,7 @@ search (memoized — repeated queries are cheap). Reports, per config:
 The reference's equivalence doctrine (SURVEY.md §4: QQMem-vs-Vacuum
 identical top-k) applied at 1M-doc scale with six-figure query counts.
 
-Run (TPU):
+Run:
   python -m wiser_tpu.tools.parity_audit --index .scale_cache/idx_c1m \
       --linedoc .scale_cache/c1m.linedoc --n-queries 100000 \
       --out PARITY_1M.json

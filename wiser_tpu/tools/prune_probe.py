@@ -2,8 +2,8 @@
 semidense route (the roadmap's "posting-block maxima + coarse doc-block
 range-max" lever).
 
-The semidense kernel's cost is L x (T-1) doc-indexed element gathers
-(~0.1 G elem/s on this backend). Compacting the candidate list to the
+The semidense kernel's cost is L x (T-1) doc-indexed element gathers.
+Compacting the candidate list to the
 top-C 128-lane posting blocks by score upper bound would cut that to
 C*128 x (T-1) — IF the prune guard (next_ub < k-th kept score, the
 pruned-dense proof) passes often enough on real workloads. The all-head
@@ -21,7 +21,7 @@ Three upper-bound variants per candidate posting block:
              masked-max the kernel would actually run) + per-term GLOBAL
              max for non-dense (bs) others.
 
-Pure numpy over the PackedIndex — no jax, no TPU.
+Pure numpy over the PackedIndex — no jax, no device.
 
 Run: python -m wiser_tpu.tools.prune_probe --index .scale_cache/idx_c1m \
          [--n 200] [--C 32,64,128] [--k 10]

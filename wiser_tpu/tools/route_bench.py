@@ -3,7 +3,7 @@ pin each execution tier (ARCHITECTURE.md "Execution tiers") and times
 them separately, so scale-ladder regressions attribute to a route instead
 of an aggregate. The profiling companion of tools/scale_bench.py.
 
-Run (TPU): python -m wiser_tpu.tools.route_bench --index .scale_cache/idx_c1m
+Run: python -m wiser_tpu.tools.route_bench --index .scale_cache/idx_c1m
            [--columns tc] [--n-queries 8192] [--batch 4096]
 """
 

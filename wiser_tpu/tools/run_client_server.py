@@ -59,8 +59,7 @@ def main(argv=None):
                     help="server executor drain window")
     ap.add_argument("--io-mode", default="both",
                     choices=["off", "dispatch", "fetch", "both"],
-                    help="server engine RTT-overlap pools (fetch wins on "
-                         "small corpora; see bench.py note)")
+                    help="server engine dispatch/fetch overlap pools")
     ap.add_argument("--warmup-s", type=float, default=0.0,
                     help="closed-loop steady-state window: drive but don't "
                          "record the first N seconds (channel setup + "

@@ -8,7 +8,7 @@ batch p50/p99, amortized per-query latency, and a sampled bit-parity
 check against the exact host search (host_exact_search is itself
 oracle-validated by the test suite).
 
-Run (TPU):
+Run:
   python -m wiser_tpu.tools.scale_bench --index .scale_cache/idx_c1m \
       [--linedoc .scale_cache/c1m.linedoc] [--n-queries 65536] \
       [--out BENCH_SCALE.json]
@@ -185,8 +185,7 @@ def main(argv=None):
                          "host-staged (the reference's read-as-needed "
                          "flash mode, vacuum_engine.h:144-166)")
     ap.add_argument("--budget-bytes", type=int, default=12 << 30,
-                    help="staged HBM budget (default 12 GiB of the v5e's "
-                         "16 — headroom for kernel workspace)")
+                    help="staged device-memory budget (default 12 GiB)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 

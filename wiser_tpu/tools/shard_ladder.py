@@ -6,8 +6,8 @@ document partition of a prebuilt PackedIndex, on
 xla_force_host_platform_device_count CPU devices, and verifies BIT
 parity against the exact host search per sampled query. QPS on a
 CPU mesh is meaningless (one physical core); the published result is
-route coverage + parity counts. Multi-chip TPU execution of the same
-code path is validated by the driver's dryrun_multichip.
+route coverage + parity counts. The same code path on four GPUs runs
+in `python chip_smoke.py --four`.
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
      JAX_PLATFORMS=cpu python -m wiser_tpu.tools.shard_ladder \
@@ -112,8 +112,7 @@ def main(argv=None):
         results[name] = {
             "n_queries": len(queries),
             # round to ms: config 1 (single-term, impact-table-served)
-            # measured 0.0 at 1 decimal in the round-3 ladder — a
-            # non-measurement the judge rightly flagged
+            # reads 0.0 at 1 decimal
             "wall_s": round(wall, 3),
             "parity_mismatches": int(bad),
             "parity_sample": len(idx),
